@@ -1,0 +1,161 @@
+"""Atomic single-word primitives (volatile) used by the combining protocols.
+
+The paper assumes atomic read/write/CAS and LL/VL/SC on single words
+(Section 2).  CPython's GIL makes individual loads/stores atomic; CAS and
+SC are implemented under a per-object mutex.  LL/SC is simulated exactly
+the way the paper's own evaluation does (Section 6): "we simulate an LL on
+an object O with a read, and an SC with a CAS on a timestamped version of
+O to avoid the ABA problem".
+
+Instrumentation: every object can be tagged ``shared=True`` so reads and
+writes on cache-shared locations are counted — this reproduces the
+Table 1 counters (stores/reads on cache lines in shared state).
+
+Backends: the classes here are the thread-execution implementations;
+the multiprocess backend provides the same interfaces over
+``multiprocessing.shared_memory`` words with lock-striped CAS emulation
+(``core/shm.py``: ShmAtomicInt / ShmAtomicRef / ShmSRef).  Protocol
+code obtains whichever variant fits the run through the ``nvm.backend``
+seam (``core/backend.py``) rather than constructing these directly.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+
+class Counters:
+    """Process-wide counters for shared-location traffic (paper Table 1)."""
+
+    def __init__(self) -> None:
+        self.shared_reads = 0
+        self.shared_writes = 0
+        self.cas_calls = 0
+        self._lock = threading.Lock()
+
+    def snapshot(self) -> Dict[str, int]:
+        return {"shared_reads": self.shared_reads,
+                "shared_writes": self.shared_writes,
+                "cas_calls": self.cas_calls}
+
+    def reset(self) -> None:
+        self.shared_reads = 0
+        self.shared_writes = 0
+        self.cas_calls = 0
+
+
+class AtomicInt:
+    """Instrumentation is opt-in: traffic is counted only when a
+    ``Counters`` object is supplied for a ``shared`` word (the Table 1
+    harness does) — the un-instrumented hot path pays no bookkeeping.
+    When a virtual clock (``NVM.clock``) is supplied, every CAS-class
+    instruction additionally advances the calling thread's logical
+    clock by the profile's ``cas_ns``."""
+
+    __slots__ = ("_value", "_mutex", "_count", "_clock")
+
+    def __init__(self, value: int = 0, *, shared: bool = False,
+                 counters: Optional[Counters] = None,
+                 clock: Optional[Any] = None) -> None:
+        self._value = value
+        self._mutex = threading.Lock()
+        self._count = counters if (shared and counters is not None) else None
+        self._clock = clock
+
+    def load(self) -> int:
+        if self._count is not None:
+            self._count.shared_reads += 1
+        return self._value
+
+    def store(self, value: int) -> None:
+        if self._count is not None:
+            self._count.shared_writes += 1
+        self._value = value
+
+    def cas(self, old: int, new: int) -> bool:
+        with self._mutex:
+            if self._count is not None:
+                self._count.cas_calls += 1
+            if self._clock is not None:
+                self._clock.advance(self._clock.profile.cas_ns)
+            if self._value == old:
+                self._value = new
+                if self._count is not None:
+                    self._count.shared_writes += 1
+                return True
+            return False
+
+    def fetch_add(self, delta: int) -> int:
+        with self._mutex:
+            old = self._value
+            self._value = old + delta
+            if self._count is not None:
+                self._count.shared_writes += 1
+            if self._clock is not None:
+                self._clock.advance(self._clock.profile.cas_ns)
+            return old
+
+
+class AtomicRef:
+    """Versioned reference supporting LL/VL/SC (ABA-safe, as in paper §6).
+    Instrumentation (counters, virtual clock) opt-in as for
+    ``AtomicInt``.
+
+    ``mirror=(nvm, addr)`` keeps an NVM word in sync with the reference
+    *inside* the SC's critical section.  The durable-MS baseline needs
+    this: mirroring head/tail with a plain store after the SC returns
+    lets a slower loser overwrite a newer winner's mirror (the
+    lost-link race class — harmless under the GIL's coarse
+    interleavings in practice, routinely hit under true parallelism),
+    and a later pwb then snapshots the regressed pointer into NVMM.
+    """
+
+    __slots__ = ("_value", "_mutex", "_count", "_clock", "_mnvm", "_maddr")
+
+    def __init__(self, value: Any, *, shared: bool = False,
+                 counters: Optional[Counters] = None,
+                 clock: Optional[Any] = None,
+                 mirror: Optional[Tuple[Any, int]] = None) -> None:
+        self._value: Tuple[Any, int] = (value, 0)
+        self._mutex = threading.Lock()
+        self._count = counters if (shared and counters is not None) else None
+        self._clock = clock
+        self._mnvm, self._maddr = mirror if mirror is not None else (None, 0)
+        if self._mnvm is not None:
+            self._mnvm.write(self._maddr, value)
+
+    def ll(self) -> Tuple[Any, int]:
+        """Load-linked: returns (value, version); version feeds VL/SC."""
+        if self._count is not None:
+            self._count.shared_reads += 1
+        return self._value
+
+    def vl(self, version: int) -> bool:
+        """Validate: has the reference changed since the LL?"""
+        if self._count is not None:
+            self._count.shared_reads += 1
+        return self._value[1] == version
+
+    def sc(self, version: int, new_value: Any) -> bool:
+        """Store-conditional: succeeds iff no SC since the matching LL.
+        A configured NVM mirror is updated inside the critical section,
+        so mirror order always matches SC success order."""
+        with self._mutex:
+            if self._count is not None:
+                self._count.cas_calls += 1
+            if self._clock is not None:
+                self._clock.advance(self._clock.profile.cas_ns)
+            if self._value[1] == version:
+                self._value = (new_value, version + 1)
+                if self._mnvm is not None:
+                    self._mnvm.write(self._maddr, new_value)
+                if self._count is not None:
+                    self._count.shared_writes += 1
+                return True
+            return False
+
+    def load(self) -> Any:
+        if self._count is not None:
+            self._count.shared_reads += 1
+        return self._value[0]

@@ -1,0 +1,294 @@
+"""The port's attention kernels on the CPU: their plain PyTorch versions
+held against the JAX Pallas kernels (interpret mode) and the reference's
+oracles, the wrappers' dispatch, and the C interface of the CUDA sources.
+
+Inputs are drawn with numpy from a seed and handed bit-identical to both
+packages.  Tolerances are those of ``tests/test_kernels.py``: 2e-5 for
+f32 flash attention and 3e-5 for f32 decode (the two sides sum in another
+order), 2e-2 for bf16 (the outputs round to bf16, ~3 significant digits).
+The CUDA kernels themselves run only on the card: the ``gpu`` test at the
+end, and ``chip_smoke.py``.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models.attention import _sdpa
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import (_build, decode_attention,
+                                 decode_attention_plain, flash_attention,
+                                 flash_attention_plain)
+from repro_torch.kernels.decode_attention import GROUPS
+from repro_torch.kernels.flash_attention import HEAD_DIMS, check_layout
+
+torch.set_num_threads(2)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_F32_TOL = 3e-5
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+
+
+def _pair(rng, shape, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 bits
+    identical: rounded once in torch, handed to JAX as raw words)."""
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+        words = t.view(torch.int16).numpy().view(np.uint16)
+        return jnp.asarray(words.view(jnp.bfloat16)), t
+    return jnp.asarray(t.numpy()), t
+
+
+def _qkv(seed, B, H, Hkv, Sq, Sk, d, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    return (_pair(rng, (B, H, Sq, d), dtype), _pair(rng, (B, Hkv, Sk, d), dtype),
+            _pair(rng, (B, Hkv, Sk, d), dtype))
+
+
+def _close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------------ #
+# flash_attention
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("B,H,Hkv,S,d", [
+    (1, 1, 1, 128, 64),
+    (2, 4, 2, 256, 64),     # GQA
+    (1, 8, 1, 256, 128),    # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_causal(B, H, Hkv, S, d, dtype):
+    (qj, q), (kj, k), (vj, v) = _qkv(0, B, H, Hkv, S, S, d, dtype)
+    want = pallas_flash(qj, kj, vj, causal=True, interpret=True)
+    got = flash_attention_plain(q, k, v, causal=True)
+    assert got.dtype == q.dtype
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("window,softcap", [(64, None), (128, 50.0)])
+def test_flash_plain_matches_pallas_window_softcap(window, softcap):
+    (qj, q), (kj, k), (vj, v) = _qkv(1, 2, 4, 2, 256, 256, 64)
+    want = pallas_flash(qj, kj, vj, causal=True, window=window,
+                        softcap=softcap, interpret=True)
+    _close(flash_attention_plain(q, k, v, causal=True, window=window,
+                                 softcap=softcap), want, TOL["float32"])
+
+
+def test_flash_plain_matches_pallas_noncausal():
+    (qj, q), (kj, k), (vj, v) = _qkv(2, 1, 2, 2, 128, 128, 64)
+    want = pallas_flash(qj, kj, vj, causal=False, interpret=True)
+    _close(flash_attention_plain(q, k, v, causal=False), want, TOL["float32"])
+
+
+@pytest.mark.parametrize("Sq,Sk,kw", [
+    (200, 200, {}),                                 # ragged, Sq == Sk
+    (70, 200, {}),                                  # Sq < Sk, right-aligned
+    (130, 70, {}),                                  # Sq > Sk: masked rows
+    (200, 200, {"window": 64, "softcap": 50.0}),
+    (90, 90, {"causal": False, "window": 32}),      # window without causal
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_ref_ragged(Sq, Sk, kw, dtype):
+    """Lengths the Pallas kernel's divisibility assert refuses, held
+    against ``ref.attention_ref``."""
+    (qj, q), (kj, k), (vj, v) = _qkv(3, 2, 4, 2, Sq, Sk, 64, dtype)
+    want = ref.attention_ref(qj, kj, vj, **kw)
+    got = flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    _close(got, want, TOL[dtype])
+
+
+def test_flash_wrapper_on_cpu_is_the_plain_version():
+    (_, q), (_, k), (_, v) = _qkv(4, 1, 4, 2, 48, 48, 64)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=16, softcap=30.0)
+    assert torch.equal(got, flash_attention_plain(q, k, v, window=16,
+                                                  softcap=30.0))
+    assert flash_attention.launches == before    # the plain version is no launch
+
+
+# ------------------------------------------------------------------ #
+# decode_attention
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("B,H,Hkv,S,hd,block,kv_len", [
+    (2, 8, 2, 1024, 64, 256, 614),
+    (1, 4, 4, 512, 128, 128, 512),     # MHA (G = 1)
+    (2, 8, 1, 256, 64, 64, 153),       # MQA
+])
+def test_decode_plain_matches_pallas(B, H, Hkv, S, hd, block, kv_len):
+    rng = np.random.default_rng(5)
+    qj, q = _pair(rng, (B, H, hd), "float32")
+    kj, k = _pair(rng, (B, Hkv, S, hd), "float32")
+    vj, v = _pair(rng, (B, Hkv, S, hd), "float32")
+    want = pallas_decode(qj, kj, vj, kv_len, block_s=block, interpret=True)
+    _close(decode_attention_plain(q, k, v, kv_len), want, DECODE_F32_TOL)
+
+
+def test_decode_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(6)
+    qj, q = _pair(rng, (2, 8, 64), "bfloat16")
+    kj, k = _pair(rng, (2, 4, 256, 64), "bfloat16")
+    vj, v = _pair(rng, (2, 4, 256, 64), "bfloat16")
+    want = pallas_decode(qj, kj, vj, 100, block_s=128, interpret=True)
+    got = decode_attention_plain(q, k, v, 100)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("kv_len,window,softcap", [
+    (1, None, None),
+    (37, 16, None),
+    (100, None, 50.0),
+    (128, 1 << 30, 50.0),      # a gemma2 global layer's window
+    (90, 24, 30.0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_model_sdpa(kv_len, window, softcap, dtype):
+    """The model decode path's masking (window and softcap on top of the
+    Pallas kernel's) held against the reference's ``_sdpa`` on the
+    heads-major cache, with the query at position ``kv_len - 1``."""
+    rng = np.random.default_rng(kv_len)
+    B, H, Hkv, S, hd = 2, 8, 4, 128, 32
+    qj, q = _pair(rng, (B, 1, H, hd), dtype)
+    kj, k = _pair(rng, (B, Hkv, S, hd), dtype)
+    vj, v = _pair(rng, (B, Hkv, S, hd), dtype)
+    want = _sdpa(qj, kj, vj, scale=hd ** -0.5, causal_offset=kv_len - 1,
+                 window=window, attn_softcap=softcap, kv_len=kv_len,
+                 kv_heads_major=True)[:, 0]
+    got = decode_attention_plain(q[:, 0].contiguous(), k, v, kv_len,
+                                 window=window, softcap=softcap)
+    tol = DECODE_F32_TOL if dtype == "float32" else TOL[dtype]
+    _close(got, want, tol)
+
+
+def test_decode_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 2, 64, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 2, 64, 64)).astype(np.float32))
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, 40, window=8)
+    assert torch.equal(got, decode_attention_plain(q, k, v, 40, window=8))
+    assert decode_attention.launches == before
+
+
+# ------------------------------------------------------------------ #
+# no fallback: a tensor off the CPU launches the kernel or raises
+# ------------------------------------------------------------------ #
+def test_wrappers_refuse_non_cpu_tensors_without_a_card():
+    """A tensor that is not on the CPU never reaches the plain version:
+    with no card to launch on, the wrappers raise."""
+    q = torch.empty((1, 2, 8, 64), device="meta")
+    k = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(q[:, :, 0], k, k, 4)
+    mixed = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(mixed, k, k)
+
+
+def test_layout_check_refuses_misaligned_and_strided_views():
+    """The kernels move 16 bytes at a time: a contiguous view that starts
+    4 bytes past a boundary, or a strided view, is refused before launch."""
+    base = torch.zeros(1 + 2 * 4 * 8 * 128)
+    odd = base[1:].view(2, 4, 8, 128)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        check_layout("flash_attention", torch.zeros(2, 4, 8, 128), odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_layout("decode_attention",
+                     torch.zeros(2, 8, 4, 128).transpose(1, 2))
+    check_layout("flash_attention", torch.zeros(2, 4, 8, 128), base[4:])
+
+
+# ------------------------------------------------------------------ #
+# the C interface: ctypes signatures agree with the extern "C" entries
+# ------------------------------------------------------------------ #
+_CTYPE = {"void*": "c_void_p", "const void*": "c_void_p", "int": "c_int",
+          "float": "c_float"}
+
+
+def _c_entries():
+    out = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            params = [" ".join(p.split()[:-1]) for p in m.group(2).split(",")]
+            out[m.group(1)] = [_CTYPE[p] for p in params]
+    return out
+
+
+def test_ctypes_signatures_match_the_cuda_sources():
+    entries = _c_entries()
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert [t.__name__ for t in argtypes] == entries[name], name
+
+
+def test_cuda_dispatch_covers_the_dense_configs():
+    """The .cu switches instantiate exactly the head dims and group sizes
+    the wrappers accept, and those cover every ported dense config."""
+    flash = (CSRC / "flash_attention.cu").read_text()
+    decode = (CSRC / "decode_attention.cu").read_text()
+    dims = {int(x) for x in re.findall(r"launch_flash<T, (\d+)>", flash)}
+    assert dims == set(HEAD_DIMS)
+    assert {int(x) for x in re.findall(r"dispatch_groups<T, (\d+)>",
+                                       decode)} == set(HEAD_DIMS)
+    assert {int(x) for x in re.findall(r"launch_decode<T, D, (\d+)>",
+                                       decode)} == set(GROUPS)
+    for cfg in ARCHS.values():
+        assert cfg.hd in HEAD_DIMS, cfg.name
+        assert cfg.n_heads // cfg.n_kv_heads in GROUPS, cfg.name
+
+
+def test_build_key_covers_every_source():
+    cus, headers = _build._sources()
+    assert {p.name for p in cus} == {"flash_attention.cu",
+                                     "decode_attention.cu"}
+    assert {p.name for p in headers} == {"common.cuh"}
+    assert _build._key() == _build._key()
+    assert "sm_90a" in " ".join(_build.FLAGS)
+
+
+# ------------------------------------------------------------------ #
+# on the card
+# ------------------------------------------------------------------ #
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain_versions(cuda, dtype):
+    tol = TOL[str(dtype).split(".")[-1]]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v = randn(2, 16, 200, 128), randn(2, 8, 200, 128), randn(2, 8, 200, 128)
+    for kw in ({}, {"window": 64, "softcap": 50.0}, {"causal": False}):
+        torch.testing.assert_close(flash_attention(q, k, v, **kw),
+                                   flash_attention_plain(q, k, v, **kw),
+                                   atol=tol, rtol=tol)
+    qd = randn(2, 16, 128)
+    for kv_len, kw in ((1, {}), (150, {}), (200, {"window": 64,
+                                                  "softcap": 50.0})):
+        torch.testing.assert_close(
+            decode_attention(qd, k, v, kv_len, **kw),
+            decode_attention_plain(qd, k, v, kv_len, **kw), atol=tol, rtol=tol)
+    torch.cuda.synchronize()

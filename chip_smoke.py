@@ -4,22 +4,26 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-one against its plain PyTorch version on the card, then serves 8 requests
-x 32 tokens through the port's ``CombiningEngine`` over full-width
-qwen3-1.7b (28 layers, bf16 weights drawn from seed 0), checks the served
-tokens, the kernels' launch counts and crash recovery of a completed
-request, and prints timings.  The last two lines of standard output are
-the ``kernels`` JSON line and ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero and prints no result; so does a machine with no
-CUDA device, or a directory that holds this script and nothing else of
-the repository.  ``--profile`` adds a torch.profiler breakdown of a
-prefill round and of decode steps.
+one against its plain PyTorch version on the card, then drives two paths,
+each through the port's ``CombiningEngine`` serving 8 requests x 32 tokens
+with bf16 weights drawn from seed 0 at full width: qwen3-1.7b (28 layers,
+``flash_attention`` in prefill, ``decode_attention`` in decode), then,
+after qwen3's weights are freed, mamba2-2.7b (64 layers, ``ssd_scan`` in
+prefill).  For each path it checks the served tokens against a direct
+greedy run, every kernel's launch count, and crash recovery of a
+completed request, and prints timings.  The last two lines of standard
+output are the ``kernels`` JSON line and ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero and prints no result; so does a
+machine with no CUDA device, or a directory that holds this script and
+nothing else of the repository.  ``--profile`` adds a torch.profiler
+breakdown of a prefill round and of decode steps of each path.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -35,13 +39,28 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # atol = rtol, per input dtype
-FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
-DECODE_SRC = "src/repro_torch/csrc/decode_attention.cu"
-FLASH_TPU = "src/repro/kernels/flash_attention.py:97"
-DECODE_TPU = "src/repro/kernels/decode_attention.py:74"
+# ssd_scan's f32 outputs: y sums up to ~640 terms (128 intra-chunk, 128
+# state columns, the carried state) of magnitude up to ~50 in another
+# order than the plain version, so agreement is to ~1e-5 of |y|'s scale
+SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}   # per output dtype
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:97"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:74"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:69"),
+}
 
+# the paths: launches of each kernel per prefill round and per decode
+# step, in units of layers
 SLICE = dict(arch="qwen3-1.7b", batch=8, max_len=1024, prompt=512,
-             max_tokens=32, seed=0)
+             max_tokens=32, seed=0,
+             per_layer={"flash_attention": (1, 0), "decode_attention": (0, 1),
+                        "ssd_scan": (0, 0)})
+SSM_SLICE = dict(SLICE, arch="mamba2-2.7b",
+                 per_layer={"flash_attention": (0, 0),
+                            "decode_attention": (0, 0), "ssd_scan": (1, 0)})
 
 
 def fail(msg: str) -> None:
@@ -97,22 +116,23 @@ class Timer:
 # --------------------------------------------------------------------- #
 def check_kernels(torch):
     from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                     flash_attention, flash_attention_plain)
+                                     flash_attention, flash_attention_plain,
+                                     ssd_scan, ssd_scan_plain)
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {name: 0.0 for name in KERNELS}
 
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.float32).to(dtype)
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda",
+                                    dtype=torch.float32)).to(dtype)
 
-    def compare(name, case, got, want, dtype):
-        tol = TOL[str(dtype).split(".")[-1]]
+    def compare(name, case, got, want, dtype, tols=TOL):
+        tol = tols[str(dtype).split(".")[-1]]
         err = (got.float() - want.float()).abs()
         bound = tol + tol * want.float().abs()
         ok = bool(torch.isfinite(got.float()).all()) and bool((err <= bound).all())
         max_err = float(err.max())
         worst[name] = max(worst[name], max_err)
-        say({"check": name, **case, "dtype": str(dtype).split(".")[-1],
+        say({"check": name, "dtype": str(dtype).split(".")[-1], **case,
              "max_abs_err": max_err, "atol": tol, "rtol": tol, "ok": ok})
         if not ok:
             fail(f"{name} {case} disagrees with its plain version")
@@ -156,16 +176,42 @@ def check_kernels(torch):
             compare("decode_attention", c,
                     decode_attention(q, k, v, c["kv_len"], **kw),
                     decode_attention_plain(q, k, v, c["kv_len"], **kw), dtype)
+
+    # ssd_scan: y and the final state, at the mamba2 slice's shape and at
+    # ragged lengths, with the distributions of tests/test_kernels.py
+    ssd_cases = [dict(B=8, L=512, H=80, chunk=128),                   # slice
+                 dict(B=2, L=300, H=80, chunk=128),                   # ragged
+                 dict(B=2, L=100, H=16, chunk=128),                   # L < chunk
+                 dict(B=2, L=448, H=16, chunk=64),
+                 dict(B=2, L=448, H=16, chunk=256)]
+    for dtype, out in ((torch.bfloat16, torch.float32),  # as the model calls it
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.float32, torch.float32)):
+        for c in ssd_cases:
+            B, L, H = c["B"], c["L"], c["H"]
+            x = randn(B, L, H, 64, dtype=dtype, scale=0.5)
+            dt = torch.nn.functional.softplus(randn(B, L, H))
+            A = -torch.exp(randn(H, scale=0.3))
+            Bm = randn(B, L, 128, dtype=dtype, scale=0.5)
+            Cm = randn(B, L, 128, dtype=dtype, scale=0.5)
+            y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=c["chunk"], out_dtype=out)
+            y0, st0 = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=c["chunk"],
+                                     out_dtype=out)
+            case = dict(c, P=64, N=128, x_dtype=str(dtype).split(".")[-1])
+            compare("ssd_scan", dict(case, out="y"), y, y0, out, SSD_TOL)
+            compare("ssd_scan", dict(case, out="final_state"), st, st0,
+                    torch.float32, SSD_TOL)
     torch.cuda.synchronize()
     return worst
 
 
-def check_model_vs_cpu(torch):
-    """Two full-width qwen3-1.7b layers in f32: prefill and two decode
-    steps on the card (kernels) against the CPU (plain versions)."""
+def check_model_vs_cpu(torch, arch):
+    """Two full-width layers of ``arch`` in f32: prefill of 100 tokens (no
+    multiple of ssd_scan's chunk) and two decode steps on the card
+    (kernels) against the CPU (plain versions)."""
     from repro_torch.configs import get
     from repro_torch.models import decode_step, init_params, prefill
-    cfg = dataclasses.replace(get(SLICE["arch"]), n_layers=2)
+    cfg = dataclasses.replace(get(arch), n_layers=2)
     p_cpu = init_params(cfg, 1, device="cpu", dtype=torch.float32)
 
     def to_card(t):
@@ -184,36 +230,37 @@ def check_model_vs_cpu(torch):
         outs[dev] = torch.stack([x.float().cpu() for x in seq])
     err = float((outs["cuda"] - outs["cpu"]).abs().max())
     ok = bool(torch.allclose(outs["cuda"], outs["cpu"], atol=1e-4, rtol=1e-3))
-    say({"check": "model_card_vs_cpu", "layers": 2, "dtype": "float32",
-         "max_abs_err": err, "atol": 1e-4, "rtol": 1e-3,
+    say({"check": "model_card_vs_cpu", "arch": arch, "layers": 2,
+         "dtype": "float32", "max_abs_err": err, "atol": 1e-4, "rtol": 1e-3,
          "logit_absmax": float(outs["cpu"][..., :cfg.vocab_size].abs().max()),
          "ok": ok})
     if not ok:
-        fail("2-layer full-width model on the card disagrees with the CPU")
+        fail(f"2-layer full-width {arch} on the card disagrees with the CPU")
 
 
 # --------------------------------------------------------------------- #
 # phase 3: the slice
 # --------------------------------------------------------------------- #
-def slice_inputs(torch, np):
-    """The slice's config, bf16 parameters drawn from the seed, and its
+def slice_inputs(torch, np, spec):
+    """The path's config, bf16 parameters drawn from the seed, and its
     prompts; one prefill and one decode step warm cuBLAS and the
     allocator."""
     from repro_torch.configs import get
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import decode_step, init_params, param_count, prefill
 
-    cfg = get(SLICE["arch"])
+    cfg = get(spec["arch"])
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SLICE["seed"], device="cuda")
+    params = init_params(cfg, seed=spec["seed"], device="cuda")
     torch.cuda.synchronize()
     say({"phase": "init_params", "arch": cfg.name, "layers": cfg.n_layers,
          "d_model": cfg.d_model, "vocab": cfg.padded_vocab,
-         "dtype": "bfloat16", "seconds": time.perf_counter() - t0})
-    rng = np.random.default_rng(SLICE["seed"])
-    prompts = [rng.integers(0, cfg.vocab_size, size=SLICE["prompt"]).tolist()
-               for _ in range(SLICE["batch"])]
+         "params": param_count(params), "dtype": "bfloat16",
+         "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(spec["seed"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=spec["prompt"]).tolist()
+               for _ in range(spec["batch"])]
     lg, st = prefill(params, cfg, prompts, device="cuda",
-                     max_len=SLICE["max_len"])
+                     max_len=spec["max_len"])
     decode_step(params, cfg, st, torch.argmax(lg, -1), device="cuda")
     torch.cuda.synchronize()
     return cfg, params, prompts
@@ -223,15 +270,27 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def run_slice(torch, np):
-    from repro_torch.kernels import decode_attention, flash_attention
+def kernel_counts():
+    from repro_torch import kernels
+    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+def zero_counts():
+    from repro_torch import kernels
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def run_slice(torch, np, spec):
+    """Serve the path's requests through the engine and check them; return
+    its timings and each kernel's launches in the served run."""
     from repro_torch.launch.serve import build_server
     from repro_torch.models import decode_step, prefill
 
-    B, T = SLICE["batch"], SLICE["max_tokens"]
-    cfg, params, prompts = slice_inputs(torch, np)
+    B, T = spec["batch"], spec["max_tokens"]
+    cfg, params, prompts = slice_inputs(torch, np, spec)
 
-    eng = build_server(cfg, params, batch=B, max_len=SLICE["max_len"],
+    eng = build_server(cfg, params, batch=B, max_len=spec["max_len"],
                        device="cuda")
     results = {}
     barrier = threading.Barrier(B)
@@ -241,8 +300,7 @@ def run_slice(torch, np):
         results[c] = eng.submit(c, prompts[c], T, seq=1, timeout=900)
 
     threads = [threading.Thread(target=client, args=(c,)) for c in range(B)]
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    zero_counts()
     for t in threads:
         t.start()
     deadline = time.time() + 60
@@ -256,12 +314,11 @@ def run_slice(torch, np):
         t.join()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = kernel_counts()
     eng.stop()
     stats = dict(eng.stats)
-    say({"phase": "serve", "requests": B, "max_tokens": T, **stats,
-         "launches": launches, "seconds": serve_s})
+    say({"phase": "serve", "arch": cfg.name, "requests": B, "max_tokens": T,
+         **stats, "launches": launches, "seconds": serve_s})
 
     if len(results) != B:
         fail(f"{len(results)} of {B} requests answered")
@@ -270,12 +327,13 @@ def run_slice(torch, np):
         if len(toks) != T or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"client {c}: bad response {toks}")
     L = cfg.n_layers
-    if launches["flash_attention"] != L * stats["prefill_rounds"]:
-        fail(f"flash_attention launched {launches['flash_attention']} times "
-             f"for {stats['prefill_rounds']} prefill rounds")
-    if launches["decode_attention"] != L * stats["decode_rounds"]:
-        fail(f"decode_attention launched {launches['decode_attention']} "
-             f"times for {stats['decode_rounds']} decode rounds")
+    for name, (per_prefill, per_decode) in spec["per_layer"].items():
+        want = L * (per_prefill * stats["prefill_rounds"]
+                    + per_decode * stats["decode_rounds"])
+        if launches[name] != want:
+            fail(f"{cfg.name}: {name} launched {launches[name]} times for "
+                 f"{stats['prefill_rounds']} prefill rounds and "
+                 f"{stats['decode_rounds']} decode rounds, not {want}")
     if stats["persists"] < 1:
         fail("no completion was persisted")
 
@@ -286,7 +344,7 @@ def run_slice(torch, np):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lg, st = prefill(params, cfg, prompts, device="cuda",
-                     max_len=SLICE["max_len"])
+                     max_len=spec["max_len"])
     nxt = torch.argmax(lg, -1)
     direct = [nxt.tolist()]
     direct_prefill_s = time.perf_counter() - t0
@@ -312,19 +370,20 @@ def run_slice(torch, np):
     del st, lg
 
     # crash: the durable response log answers client 0 with no launch
-    before = (flash_attention.launches, decode_attention.launches)
+    before = kernel_counts()
     eng.restart_after_crash()
     rec = eng.recover_request(0, prompts[0], T, seq=1, timeout=5)
     if rec != results[0]:
         fail("recover_request did not return client 0's logged response")
-    if (flash_attention.launches, decode_attention.launches) != before:
+    if kernel_counts() != before:
         fail("recovery launched a kernel")
-    say({"phase": "recover", "client": 0, "cached": True,
+    say({"phase": "recover", "arch": cfg.name, "client": 0, "cached": True,
          "tokens": len(rec["tokens"])})
 
     times = eng.step_times
     dec = times["decode"]
     return {
+        "arch": cfg.name,
         "prefill_ms_per_round": 1e3 * sum(times["prefill"]) / len(times["prefill"]),
         "decode_ms_per_step": 1e3 * median(dec),
         "decode_ms_per_step_mean": 1e3 * sum(dec) / len(dec),
@@ -340,15 +399,15 @@ def run_slice(torch, np):
 # --------------------------------------------------------------------- #
 # --profile: where a prefill round and a decode step spend their time
 # --------------------------------------------------------------------- #
-def profile_slice(torch, np, steps: int = 8, top: int = 8):
+def profile_slice(torch, np, spec, steps: int = 8, top: int = 8):
     """torch.profiler over one direct prefill and ``steps`` decode steps
-    of the slice: the card's busy share of each, and the ops with the
-    most device and host time."""
+    of a path: the card's busy share of each, and the ops with the most
+    device and host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step, prefill
 
-    cfg, params, prompts = slice_inputs(torch, np)
+    cfg, params, prompts = slice_inputs(torch, np, spec)
 
     def device_us(e):
         return e.self_device_time_total
@@ -363,7 +422,7 @@ def profile_slice(torch, np, steps: int = 8, top: int = 8):
         by_dev = sorted(dev, key=device_us, reverse=True)[:top]
         by_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
                         reverse=True)[:top]
-        say({"phase": "profile", "what": name, "repeats": n,
+        say({"phase": "profile", "arch": cfg.name, "what": name, "repeats": n,
              "wall_ms": 1e3 * wall_s / n, "device_busy_ms": busy_ms / n,
              "device_busy_share": busy_ms / (1e3 * wall_s),
              "top_device_ms": {e.key: device_us(e) / 1e3 / n for e in by_dev},
@@ -374,7 +433,7 @@ def profile_slice(torch, np, steps: int = 8, top: int = 8):
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         lg, st = prefill(params, cfg, prompts, device="cuda",
-                         max_len=SLICE["max_len"])
+                         max_len=spec["max_len"])
         nxt = torch.argmax(lg, -1)
         nxt.tolist()
         wall = time.perf_counter() - t0
@@ -395,7 +454,8 @@ def profile_slice(torch, np, steps: int = 8, top: int = 8):
 def time_kernels(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                     flash_attention, flash_attention_plain)
+                                     flash_attention, flash_attention_plain,
+                                     ssd_scan, ssd_scan_plain)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(99)
     bf = torch.bfloat16
@@ -440,7 +500,41 @@ def time_kernels(torch):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
-    return {"flash_attention": flash, "decode_attention": dec}
+
+    # ssd_scan as mamba2's prefill calls it: x, Bm, Cm bf16 from the
+    # convs, dt and A f32, y f32; one chunk's work is C B^T over the whole
+    # chunk (as the TPU kernel computes it), the masked product with X,
+    # C S^T and the state update; no PyTorch call computes the scan
+    from repro_torch.configs import get
+    cfg = get(SSM_SLICE["arch"])
+    B, L = SSM_SLICE["batch"], SSM_SLICE["prompt"]
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    H, cl = cfg.ssm_expand * cfg.d_model // P, 128
+    x = 0.5 * randn(B, L, H, P)
+    Bm, Cm = 0.5 * randn(B, L, N), 0.5 * randn(B, L, N)
+    dt = F.softplus(torch.randn(B, L, H, generator=gen, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device="cuda"))
+    f32 = 4
+    nbytes = (es * B * L * H * P + f32 * B * L * H + f32 * H
+              + 2 * es * B * L * N + f32 * B * L * H * P + f32 * B * H * P * N)
+    n_chunks = -(-L // cl)
+    flops = B * H * n_chunks * (2 * cl * cl * N + 2 * cl * cl * P
+                                + 2 * cl * N * P + 2 * cl * P * N)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ssd = {
+        "shape": f"x [{B},{L},{H},{P}] Bm,Cm [{B},{L},{N}] bf16, dt f32, "
+                 f"y f32, chunk {cl}",
+        "ms": timer(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cl,
+                                     out_dtype=torch.float32)),
+        "plain_ms": timer(lambda: ssd_scan_plain(x, dt, A, Bm, Cm, chunk=cl,
+                                                 out_dtype=torch.float32)),
+        "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    return {"flash_attention": flash, "decode_attention": dec,
+            "ssd_scan": ssd}
 
 
 def main(argv=None) -> None:
@@ -474,22 +568,36 @@ def main(argv=None) -> None:
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "log": str(_build.library_dir() / "build.log")})
     worst = check_kernels(torch)
-    check_model_vs_cpu(torch)
+    for spec in (SLICE, SSM_SLICE):
+        check_model_vs_cpu(torch, spec["arch"])
 
-    # phase 3: the slice; phase 4: timings
-    slice_t, launches = run_slice(torch, np)
-    say({"phase": "slice_timing", **slice_t, "device": name,
-         "nvidia_smi": smi})
+    # phase 3: the paths, one after the other; each kernel runs on one of
+    # them (run_slice checks that the other launches it no time), so its
+    # launches on the main path are the sum over both runs
+    launches = {kname: 0 for kname in KERNELS}
+    for spec in (SLICE, SSM_SLICE):
+        slice_t, path_launches = run_slice(torch, np, spec)
+        say({"phase": "slice_timing", **slice_t, "device": name,
+             "nvidia_smi": smi})
+        for kname, n in path_launches.items():
+            launches[kname] += n
+        gc.collect()                 # free this path's weights and state
+        torch.cuda.empty_cache()
+    # after both served runs: a run after the profiler has traced was
+    # seen to step slower on the host
+    for spec in (SLICE, SSM_SLICE) if args.profile else ():
+        profile_slice(torch, np, spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # phase 4: per-kernel timings
     kt = time_kernels(torch)
     for kname, row in kt.items():
         say({"phase": "kernel_timing", "name": kname, **row,
              "launches": launches[kname], "device": name,
              "nvidia_smi": smi})
-    if args.profile:
-        profile_slice(torch, np)
     rows = []
-    for kname, src, tpu in (("flash_attention", FLASH_SRC, FLASH_TPU),
-                            ("decode_attention", DECODE_SRC, DECODE_TPU)):
+    for kname, (src, tpu) in KERNELS.items():
         r = kt[kname]
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": launches[kname],

@@ -3,8 +3,8 @@
 One frozen dataclass covers every assigned family (dense / moe / ssm /
 hybrid / vlm / audio).  Each ``configs/<arch>.py`` instantiates the exact
 published numbers; ``smoke()`` derives a tiny same-family config for CPU
-tests.  The port runs the dense family; the other families' fields are
-kept so the configs stay field-for-field the reference's.
+tests.  The port runs the dense and ssm families; the other families'
+fields are kept so the configs stay field-for-field the reference's.
 """
 
 from __future__ import annotations

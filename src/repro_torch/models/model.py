@@ -1,4 +1,4 @@
-"""Model assembly, dense family.
+"""Model assembly, dense and ssm families.
 
 Parameters keep the reference's stacked layout: ``params["blocks"]``
 holds every layer's weights on a leading layer axis, so a reference
@@ -13,10 +13,10 @@ Entry points (each takes ``device="cuda"`` unless the caller passes
   prefill(params, cfg, tokens, device, max_len)  -> (last logits, state)
   decode_step(params, cfg, state, tokens, device)-> (logits, state)
 
-The large matrix products (projections, MLP, tied unembed) are
-``torch.matmul``, as the reference leaves them to XLA; attention goes
-through the port's kernels.  Families other than ``dense`` raise
-``NotImplementedError``.
+The large matrix products (projections, MLP, unembed) are
+``torch.matmul``, as the reference leaves them to XLA; attention and the
+SSD scan go through the port's kernels.  Families other than ``dense``
+and ``ssm`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,18 +29,20 @@ from ..configs.base import ArchConfig
 from ..device import resolve
 from .attention import KVCache, init_attn_params, layer_window, self_attention
 from .layers import dense_init, embed, rms_norm, swiglu, unembed, zeros_init
+from .ssm import (SSMState, init_ssm_params, init_ssm_state, ssm_block_decode,
+                  ssm_block_prefill, ssm_block_train)
 
+PORTED = ("dense", "ssm")
 _LATER = {
-    "moe": "ROADMAP.md queue 1, item 7 (MoE, VLM and audio families)",
-    "vlm": "ROADMAP.md queue 1, item 7 (MoE, VLM and audio families)",
-    "audio": "ROADMAP.md queue 1, item 7 (MoE, VLM and audio families)",
-    "ssm": "ROADMAP.md queue 1, item 6 (SSM and hybrid families)",
-    "hybrid": "ROADMAP.md queue 1, item 6 (SSM and hybrid families)",
+    "moe": "ROADMAP.md queue 1, item 9 (MoE, VLM and audio families)",
+    "vlm": "ROADMAP.md queue 1, item 9 (MoE, VLM and audio families)",
+    "audio": "ROADMAP.md queue 1, item 9 (MoE, VLM and audio families)",
+    "hybrid": "ROADMAP.md queue 1, item 8 (hybrid family)",
 }
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: "
             f"{_LATER.get(cfg.family, 'unknown family')}")
@@ -76,6 +78,11 @@ def _init_mlp(gen, cfg, L, dtype):
     return p
 
 
+def _init_ssm_block(gen, cfg, L, dtype):
+    return {"ln1": zeros_init((L, cfg.d_model), dtype, gen.device),
+            "ssm": init_ssm_params(gen, cfg, L, dtype)}
+
+
 def init_params(cfg: ArchConfig, seed: int, device="cuda",
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """The reference's shapes, stacked [L, ...] layout and distributions
@@ -84,7 +91,7 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda",
     on ``device`` and cast to ``dtype``.  A torch generator gives other
     numbers than ``jax.random``: parameters held against the reference
     come from ``convert.params_from_reference`` instead."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -98,6 +105,9 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda",
     del embed_t
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (D, cfg.padded_vocab), dtype=dtype)
+    if cfg.family == "ssm":
+        params["blocks"] = _init_ssm_block(gen, cfg, L, dtype)
+        return params
     params["blocks"] = {"ln1": zeros_init((L, D), dtype, dev),
                         "attn": init_attn_params(gen, cfg, L, dtype),
                         "ln2": zeros_init((L, D), dtype, dev),
@@ -130,16 +140,25 @@ def _attn_block(p, x, cfg, i, cache=None, cache_out=None):
     return x + _mlp_apply(p["mlp"], h, cfg), new_cache
 
 
+def _ssm_block(p, x, cfg):
+    return x + ssm_block_train(p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                               cfg)
+
+
 # ===================================================================== #
 # Forward                                                               #
 # ===================================================================== #
 @torch.no_grad()
 def forward(params, cfg: ArchConfig, tokens, device="cuda") -> torch.Tensor:
     """tokens: [B, S] int -> logits [B, S, Vp]."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = embed(_tokens(tokens, resolve(device)), params["embed"])
     for i in range(cfg.n_layers):
-        x, _ = _attn_block(_layer(params["blocks"], i), x, cfg, i)
+        p = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            x = _ssm_block(p, x, cfg)
+        else:
+            x, _ = _attn_block(p, x, cfg, i)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _unembed_table(params, cfg), cfg.logit_softcap,
                    cfg.vocab_size)
@@ -149,13 +168,15 @@ def forward(params, cfg: ArchConfig, tokens, device="cuda") -> torch.Tensor:
 # Prefill / decode                                                      #
 # ===================================================================== #
 class DecodeState(NamedTuple):
-    """Dense-family decode state: the stacked KV cache and the shared
-    position, a host int (so no step syncs with the card to read it).
+    """Decode state: the dense family's stacked KV cache or the ssm
+    family's stacked ``SSMState``, and the shared position, a host int
+    (so no step syncs with the card to read it).
 
-    ``decode_step`` updates ``kv`` in place: a state passed to it shares
-    its cache storage with the state it returns."""
-    kv: KVCache      # k, v: [L, B, Hkv, S_max, hd]; length == pos
+    ``decode_step`` updates ``kv`` and ``ssm`` in place: a state passed to
+    it shares its storage with the state it returns."""
+    kv: Optional[KVCache]    # k, v: [L, B, Hkv, S_max, hd]; length == pos
     pos: int
+    ssm: Optional[SSMState] = None   # each field [L, ...]
 
 
 def _empty_kv(cfg, n: int, batch: int, max_len: int, dtype, device):
@@ -167,9 +188,15 @@ def _empty_kv(cfg, n: int, batch: int, max_len: int, dtype, device):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda", dtype=torch.bfloat16) -> DecodeState:
-    _dense_only(cfg)
+    """A zero state at pos 0 (``max_len`` sizes the dense family's cache;
+    the ssm family's state does not grow with the sequence)."""
+    _check_ported(cfg)
+    dev = resolve(device)
+    if cfg.family == "ssm":
+        return DecodeState(kv=None, pos=0,
+                           ssm=init_ssm_state(cfg, batch, dtype, dev))
     return DecodeState(kv=_empty_kv(cfg, cfg.n_layers, batch, max_len, dtype,
-                                    resolve(device)), pos=0)
+                                    dev), pos=0)
 
 
 @torch.no_grad()
@@ -177,10 +204,11 @@ def prefill(params, cfg: ArchConfig, tokens, device="cuda",
             max_len: Optional[int] = None):
     """Process a full prompt; return (last-position logits [B, Vp], state).
 
-    The KV cache is allocated at ``max_len`` (default: the prompt
-    length) and filled layer by layer, in place of the reference's
-    pad-after (``_pad_kv``)."""
-    _dense_only(cfg)
+    The dense family's KV cache is allocated at ``max_len`` (default: the
+    prompt length) and filled layer by layer, in place of the reference's
+    pad-after (``_pad_kv``); the ssm family fills a stacked ``SSMState``
+    layer by layer."""
+    _check_ported(cfg)
     dev = resolve(device)
     tokens = _tokens(tokens, dev)
     B, S = tokens.shape
@@ -188,33 +216,53 @@ def prefill(params, cfg: ArchConfig, tokens, device="cuda",
     if max_len < S:
         raise ValueError(f"max_len {max_len} < prompt length {S}")
     x = embed(tokens, params["embed"])
-    kv = _empty_kv(cfg, cfg.n_layers, B, max_len, x.dtype, dev)
-    for i in range(cfg.n_layers):
-        x, _ = _attn_block(_layer(params["blocks"], i), x, cfg, i,
-                           cache_out=KVCache(kv.k[i], kv.v[i], 0))
+    if cfg.family == "ssm":
+        kv, st = None, init_ssm_state(cfg, B, x.dtype, dev)
+        for i in range(cfg.n_layers):
+            p = _layer(params["blocks"], i)
+            out, s = ssm_block_prefill(
+                p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+            x = x + out
+            for stacked, layer in zip(st, s):
+                stacked[i].copy_(layer)
+    else:
+        st, kv = None, _empty_kv(cfg, cfg.n_layers, B, max_len, x.dtype, dev)
+        for i in range(cfg.n_layers):
+            x, _ = _attn_block(_layer(params["blocks"], i), x, cfg, i,
+                               cache_out=KVCache(kv.k[i], kv.v[i], 0))
+        kv = KVCache(kv.k, kv.v, S)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x[:, -1, :], _unembed_table(params, cfg),
                      cfg.logit_softcap, cfg.vocab_size)
-    return logits, DecodeState(kv=KVCache(kv.k, kv.v, S), pos=S)
+    return logits, DecodeState(kv=kv, pos=S, ssm=st)
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, state: DecodeState, tokens,
                 device="cuda"):
-    """tokens: [B] int -> (logits [B, Vp], new state).  The cache is
-    written in place at ``state.pos``."""
-    _dense_only(cfg)
+    """tokens: [B] int -> (logits [B, Vp], new state).  The dense cache is
+    written in place at ``state.pos``; the ssm state is updated in
+    place."""
+    _check_ported(cfg)
     dev = resolve(device)
-    if state.pos >= state.kv.k.shape[3]:
+    ssm = cfg.family == "ssm"
+    if not ssm and state.pos >= state.kv.k.shape[3]:
         raise ValueError(f"decode position {state.pos} past the cache "
                          f"({state.kv.k.shape[3]} slots)")
     x = embed(_tokens(tokens, dev)[:, None], params["embed"])
-    k_all, v_all = state.kv.k, state.kv.v
     for i in range(cfg.n_layers):
-        x, _ = _attn_block(_layer(params["blocks"], i), x, cfg, i,
-                           cache=KVCache(k_all[i], v_all[i], state.pos))
+        p = _layer(params["blocks"], i)
+        if ssm:
+            out, _ = ssm_block_decode(
+                p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                SSMState(*(t[i] for t in state.ssm)))
+            x = x + out
+        else:
+            x, _ = _attn_block(p, x, cfg, i, cache=KVCache(
+                state.kv.k[i], state.kv.v[i], state.pos))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x[:, 0, :], _unembed_table(params, cfg),
                      cfg.logit_softcap, cfg.vocab_size)
     pos = state.pos + 1
-    return logits, DecodeState(kv=KVCache(k_all, v_all, pos), pos=pos)
+    kv = None if ssm else KVCache(state.kv.k, state.kv.v, pos)
+    return logits, DecodeState(kv=kv, pos=pos, ssm=state.ssm)

@@ -70,7 +70,7 @@ class PBCombCheckpointer:
         self.template = payload_template
         self.lease_s = lease_s
         # volatile protocol state (rebuilt on recovery): the shared
-        # announcement plumbing from repro.api instead of a private list
+        # announcement plumbing of the api package instead of a private list
         self._kick = threading.Event()
         self.board = AnnounceBoard(n_announcers,
                                    on_announce=self._kick.set)

@@ -335,12 +335,16 @@ class CombiningEngine:
             [(self.log, "record", s.client, s.seq, responses[s.slot])
              for s in finished])
         self.stats["persists"] += 1
+        # serve before the table forgets the sequences: a prefill
+        # combiner running in between would find an announcement neither
+        # done nor live and admit it a second time (the reference engine
+        # drops them from the table first)
+        for s in finished:
+            rec = self.board.slots[s.client]
+            if rec is not None and rec.payload.seq == s.seq:
+                self.board.serve(rec, responses[s.slot])
         with self._table_lock:
             for s in finished:
                 self.live.pop(_live_key(s.client, s.seq), None)
                 self.kv.pop(s.slot, None)
                 self.slots.free(s.slot)            # recycling stack
-        for s in finished:
-            rec = self.board.slots[s.client]
-            if rec is not None and rec.payload.seq == s.seq:
-                self.board.serve(rec, responses[s.slot])

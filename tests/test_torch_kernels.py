@@ -1,6 +1,8 @@
 """The port's attention kernels on the CPU: their plain PyTorch versions
 held against the JAX Pallas kernels (interpret mode) and the reference's
-oracles, the wrappers' dispatch, and the C interface of the CUDA sources.
+oracles, the wrappers' dispatch, and the C interface and instantiated
+shapes of every CUDA source (``ssd_scan``'s plain version and dispatch are
+tested in ``test_torch_ssm.py``).
 
 Inputs are drawn with numpy from a seed and handed bit-identical to both
 packages.  Tolerances are those of ``tests/test_kernels.py``: 2e-5 for
@@ -28,6 +30,7 @@ from repro_torch.kernels import (_build, decode_attention,
                                  flash_attention_plain)
 from repro_torch.kernels.decode_attention import GROUPS
 from repro_torch.kernels.flash_attention import HEAD_DIMS, check_layout
+from repro_torch.kernels.ssd_scan import SHAPES as SSD_SHAPES
 
 torch.set_num_threads(2)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -247,15 +250,30 @@ def test_cuda_dispatch_covers_the_dense_configs():
                                        decode)} == set(HEAD_DIMS)
     assert {int(x) for x in re.findall(r"launch_decode<T, D, (\d+)>",
                                        decode)} == set(GROUPS)
-    for cfg in ARCHS.values():
+    dense = [c for c in ARCHS.values() if c.family == "dense"]
+    assert dense
+    for cfg in dense:
         assert cfg.hd in HEAD_DIMS, cfg.name
         assert cfg.n_heads // cfg.n_kv_heads in GROUPS, cfg.name
+
+
+def test_cuda_dispatch_covers_the_ssm_configs():
+    """ssd_scan.cu instantiates exactly the (head_dim, state) pairs the
+    wrapper accepts, and those cover every ported ssm config."""
+    src = (CSRC / "ssd_scan.cu").read_text()
+    shapes = {(int(p), int(n)) for p, n in
+              re.findall(r"launch_ssd<T, O, (\d+), (\d+)>", src)}
+    assert shapes == set(SSD_SHAPES)
+    ssm = [c for c in ARCHS.values() if c.family == "ssm"]
+    assert [c.name for c in ssm] == ["mamba2-2.7b"]
+    for cfg in ssm:
+        assert (cfg.ssm_head_dim, cfg.ssm_state) in SSD_SHAPES, cfg.name
 
 
 def test_build_key_covers_every_source():
     cus, headers = _build._sources()
     assert {p.name for p in cus} == {"flash_attention.cu",
-                                     "decode_attention.cu"}
+                                     "decode_attention.cu", "ssd_scan.cu"}
     assert {p.name for p in headers} == {"common.cuh"}
     assert _build._key() == _build._key()
     assert "sm_90a" in " ".join(_build.FLAGS)

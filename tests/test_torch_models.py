@@ -84,7 +84,7 @@ def test_params_from_reference_is_bit_exact_in_bf16():
     assert cfg.padded_vocab == params["embed"].shape[0]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"])
 def test_init_params_has_the_reference_layout(arch):
     cfg = ARCHS[arch].smoke()
     shapes = jax.eval_shape(lambda: ref_init_params(REF_ARCHS[arch].smoke(),
@@ -95,12 +95,18 @@ def test_init_params_has_the_reference_layout(arch):
            for k, v in _flat(params).items()}
     assert got == want
     # the reference's distributions: embed N(0, 0.01), projections
-    # N(0, 1/fan_in), norms zero
+    # N(0, 1/fan_in), norms zero; the mixer's f32 leaves A_log = 0,
+    # D = 1, dt_bias = 0 stay f32 whatever the dtype
     p32 = init_params(cfg, 0, device="cpu", dtype=torch.float32)
     assert abs(float(p32["embed"].std()) - 0.01) < 1e-3
-    wq = p32["blocks"]["attn"]["wq"]
-    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
-    assert not p32["blocks"]["ln1"].any() and not p32["final_norm"].any()
+    blocks = p32["blocks"]
+    w = blocks["ssm"]["wx"] if cfg.family == "ssm" else blocks["attn"]["wq"]
+    assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert not blocks["ln1"].any() and not p32["final_norm"].any()
+    if cfg.family == "ssm":
+        mixer = params["blocks"]["ssm"]
+        assert not mixer["A_log"].any() and not mixer["dt_bias"].any()
+        assert bool((mixer["D"] == 1).all())
     # a seed makes the same draw; another seed another
     again = init_params(cfg, 0, device="cpu", dtype=torch.float32)
     assert torch.equal(again["embed"], p32["embed"])
@@ -290,9 +296,9 @@ def test_padded_vocab_never_wins():
 
 
 # ------------------------------------------------------------------ #
-# what the dense slice refuses
+# what the ported slices refuse
 # ------------------------------------------------------------------ #
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
 def test_other_families_are_not_ported_yet(family):
     cfg = dataclasses.replace(ARCHS["qwen3-1.7b"].smoke(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -75,6 +75,42 @@ def test_generate_and_batching():
     assert eng.stats["persists"] <= 8
 
 
+def test_completion_is_never_admitted_again():
+    """A prefill combiner that runs while a decode round completes its
+    sequences must not admit them a second time.  Here it runs right
+    after each response is served, the window in which the reference
+    engine's order (forget the sequences, then serve) re-admits every
+    completion not yet served."""
+    eng = _toy_engine()
+    serve = eng.board.serve
+
+    def serve_then_prefill(rec, response):
+        serve(rec, response)
+        eng._combine_prefill()
+    eng.board.serve = serve_then_prefill
+    results = {}
+
+    def client(c):
+        results[c] = eng.submit(c, [c, c + 1], max_tokens=3, seq=1,
+                                timeout=30)
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in ts:
+        t.start()
+    deadline = time.time() + 30
+    while len(eng.board.pending()) < 4:
+        assert time.time() < deadline
+        time.sleep(0.001)
+    eng.start()
+    for t in ts:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    eng.stop()
+    assert sorted(results) == [0, 1, 2, 3]
+    assert eng.stats["prefill_rounds"] == 1
+    assert eng.stats["prefill_batched"] == 4 and not eng.live
+
+
 def test_detectable_request_recovery():
     eng = _toy_engine()
     eng.start()

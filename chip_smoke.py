@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-one against its plain PyTorch version on the card, then drives two paths,
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and prints,
+for each, every entry function's registers, spills and shared memory and
+its count of tensor-core instructions (``build_kernel`` lines); holds each
+kernel against its plain PyTorch version on the card, then drives two paths,
 each through the port's ``CombiningEngine`` serving 8 requests x 32 tokens
 with bf16 weights drawn from seed 0 at full width: qwen3-1.7b (28 layers,
 ``flash_attention`` in prefill, ``decode_attention`` in decode), then,
 after qwen3's weights are freed, mamba2-2.7b (64 layers, ``ssd_scan`` in
 prefill).  For each path it checks the served tokens against a direct
 greedy run, every kernel's launch count, and crash recovery of a
-completed request, and prints timings.  The last two lines of standard
+completed request, and prints timings (each kernel's median, min and max
+over 25 launches).  The last two lines of standard
 output are the ``kernels`` JSON line and ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero and prints no result; so does a
 machine with no CUDA device, or a directory that holds this script and
@@ -25,6 +28,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -81,18 +85,86 @@ def smi_line() -> str:
 
 
 # --------------------------------------------------------------------- #
+# phase 2a: what the compiler made of each kernel
+# --------------------------------------------------------------------- #
+# kernels whose bf16 instantiations must run their products on tensor cores
+TENSOR_CORE_KERNELS = ("flash_attention", "ssd_scan")
+
+
+def build_report():
+    """One line per kernel source: for each entry function (by its mangled
+    name, which carries the template arguments), the registers,
+    spills and static shared memory that ``-Xptxas -v`` wrote to
+    build.log, and the count of tensor-core instructions in its SASS
+    (HMMA from mma.sync, HGMMA from wgmma) where the toolkit has
+    ``cuobjdump``.  Fails if a kernel of TENSOR_CORE_KERNELS has no
+    tensor-core instruction."""
+    from repro_torch.kernels import _build
+    lib_dir = _build.library_dir()
+    entries, kernel, cur = {}, None, None
+    for line in (lib_dir / "build.log").read_text().splitlines():
+        if m := re.match(r"== (\w+)\.cu \(rc", line):
+            kernel = m.group(1)
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = entries[m.group(1)] = {"kernel": kernel}
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        elif cur is not None and (m := re.search(r"Used (\d+) registers",
+                                                 line)):
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    bindir = Path(_build._nvcc()).parent
+    cuobjdump = bindir / "cuobjdump"
+    sass = None
+    if cuobjdump.is_file():
+        sass = {}
+        fn = None
+        dump = subprocess.run([str(cuobjdump), "-sass",
+                               str(lib_dir / _build.LIB_NAME)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for line in dump.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                sass[fn] = {"hmma": 0, "hgmma": 0}
+            elif fn is not None and "HGMMA" in line:
+                sass[fn]["hgmma"] += 1
+            elif fn is not None and "HMMA" in line:
+                sass[fn]["hmma"] += 1
+    for kname in KERNELS:
+        rows = []
+        for mangled, e in entries.items():
+            if e["kernel"] != kname:
+                continue
+            row = {"entry": mangled,
+                   **{k: v for k, v in e.items() if k != "kernel"}}
+            if sass is not None:
+                row.update(sass.get(mangled, {"hmma": None, "hgmma": None}))
+            rows.append(row)
+        say({"phase": "build_kernel", "kernel": kname, "entries": rows,
+             "sass": "cuobjdump -sass" if sass is not None else
+             f"no cuobjdump in {bindir}: tensor-core counts not read"})
+        if sass is not None and kname in TENSOR_CORE_KERNELS and not any(
+                (r["hmma"] or 0) + (r["hgmma"] or 0) for r in rows):
+            fail(f"{kname}: no tensor-core instruction in its SASS")
+
+
+# --------------------------------------------------------------------- #
 # timing helpers
 # --------------------------------------------------------------------- #
 class Timer:
-    """Median of per-launch CUDA-event times, with the L2 cache flushed
-    before every launch (the model's callers find their inputs cold)."""
+    """Median, min and max of per-launch CUDA-event times, with the L2
+    cache flushed before every launch (the model's callers find their
+    inputs cold)."""
 
     def __init__(self, torch, iters: int = 25, warmup: int = 5):
         self.torch = torch
         self.iters, self.warmup = iters, warmup
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn):
         torch = self.torch
         for _ in range(self.warmup):
             fn()
@@ -108,7 +180,12 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         times = sorted(s.elapsed_time(e) for s, e in pairs)
-        return times[len(times) // 2]
+        return times[len(times) // 2], times[0], times[-1]
+
+    def row(self, key: str, fn) -> dict:
+        """``{key: median, key_min: min, key_max: max}`` of fn's times."""
+        med, lo, hi = self(fn)
+        return {key: med, f"{key}_min": lo, f"{key}_max": hi}
 
 
 # --------------------------------------------------------------------- #
@@ -146,6 +223,8 @@ def check_kernels(torch):
         dict(B=2, H=16, Hkv=8, Sq=512, Sk=512, d=128, softcap=50.0),
         dict(B=1, H=4, Hkv=2, Sq=300, Sk=300, d=256, window=64, softcap=50.0),
         dict(B=1, H=4, Hkv=1, Sq=130, Sk=70, d=128),                 # Sq > Sk
+        dict(B=1, H=8, Hkv=1, Sq=77, Sk=77, d=256, causal=False),    # G = 8
+        dict(B=2, H=8, Hkv=8, Sq=200, Sk=200, d=128),                # G = 1
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for c in flash_cases:
@@ -183,7 +262,8 @@ def check_kernels(torch):
                  dict(B=2, L=300, H=80, chunk=128),                   # ragged
                  dict(B=2, L=100, H=16, chunk=128),                   # L < chunk
                  dict(B=2, L=448, H=16, chunk=64),
-                 dict(B=2, L=448, H=16, chunk=256)]
+                 dict(B=2, L=448, H=16, chunk=256),
+                 dict(B=1, L=1100, H=4, chunk=1024)]                 # MAX_CHUNK
     for dtype, out in ((torch.bfloat16, torch.float32),  # as the model calls it
                        (torch.bfloat16, torch.bfloat16),
                        (torch.float32, torch.float32)):
@@ -472,9 +552,10 @@ def time_kernels(torch):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     flash = {
         "shape": f"q [{B},{H},{S},{d}] k,v [{B},{Hkv},{S},{d}] bf16 causal",
-        "ms": timer(lambda: flash_attention(q, k, v, causal=True)),
-        "plain_ms": timer(lambda: flash_attention_plain(q, k, v, causal=True)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+        **timer.row("ms", lambda: flash_attention(q, k, v, causal=True)),
+        **timer.row("plain_ms",
+                    lambda: flash_attention_plain(q, k, v, causal=True)),
+        **timer.row("library_ms", lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -485,17 +566,22 @@ def time_kernels(torch):
     kv_len = SLICE["prompt"] + SLICE["max_tokens"] // 2   # mid-generation
     qd = randn(B, H, d)
     kc, vc = randn(B, Hkv, Smax, d), randn(B, Hkv, Smax, d)
+    # the yardstick gets the cache prefix contiguous, made once here and
+    # not inside its timed call
     q4 = qd[:, :, None, :]
+    kpre = kc[:, :, :kv_len].contiguous()
+    vpre = vc[:, :, :kv_len].contiguous()
     flops = 2 * 2 * B * H * kv_len * d
     nbytes = es * (2 * B * Hkv * kv_len * d + 2 * B * H * d)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     dec = {
         "shape": f"q [{B},{H},{d}] cache [{B},{Hkv},{Smax},{d}] bf16 "
                  f"kv_len {kv_len}",
-        "ms": timer(lambda: decode_attention(qd, kc, vc, kv_len)),
-        "plain_ms": timer(lambda: decode_attention_plain(qd, kc, vc, kv_len)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q4, kc[:, :, :kv_len], vc[:, :, :kv_len], enable_gqa=True)),
+        **timer.row("ms", lambda: decode_attention(qd, kc, vc, kv_len)),
+        **timer.row("plain_ms",
+                    lambda: decode_attention_plain(qd, kc, vc, kv_len)),
+        **timer.row("library_ms", lambda: F.scaled_dot_product_attention(
+            q4, kpre, vpre, enable_gqa=True)),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -524,10 +610,10 @@ def time_kernels(torch):
     ssd = {
         "shape": f"x [{B},{L},{H},{P}] Bm,Cm [{B},{L},{N}] bf16, dt f32, "
                  f"y f32, chunk {cl}",
-        "ms": timer(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cl,
-                                     out_dtype=torch.float32)),
-        "plain_ms": timer(lambda: ssd_scan_plain(x, dt, A, Bm, Cm, chunk=cl,
-                                                 out_dtype=torch.float32)),
+        **timer.row("ms", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cl,
+                                           out_dtype=torch.float32)),
+        **timer.row("plain_ms", lambda: ssd_scan_plain(
+            x, dt, A, Bm, Cm, chunk=cl, out_dtype=torch.float32)),
         "library_ms": None,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -567,6 +653,7 @@ def main(argv=None) -> None:
     _build.library()
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "log": str(_build.library_dir() / "build.log")})
+    build_report()
     worst = check_kernels(torch)
     for spec in (SLICE, SSM_SLICE):
         check_model_vs_cpu(torch, spec["arch"])

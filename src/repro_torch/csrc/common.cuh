@@ -1,5 +1,5 @@
-// Helpers shared by the attention kernels: vector loads that widen bf16 or
-// f32 rows to f32 registers, narrowing stores, and the finite mask value.
+// Helpers shared by the kernels: vector loads that widen bf16 or f32 rows
+// to f32 registers, narrowing stores, and the finite mask value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +60,14 @@ template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// Store two f32 values as two contiguous elements of T.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // Store four f32 values as four contiguous elements of T.

@@ -39,10 +39,10 @@ SIGNATURES = {
     # kv_len, chunk, n_split, softcap, scale, stream
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _F, _P],
-    # x, dt, A, Bm, Cm, y, state, B, L, H, P, N, chunk, dtype, out_dtype,
-    # stream
-    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P],
+    # x, dt, A, Bm, Cm, y, state, cb (C B^T scratch), B, L, H, P, N, chunk,
+    # dtype, out_dtype, stream
+    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

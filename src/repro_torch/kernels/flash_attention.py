@@ -2,12 +2,15 @@
 (``csrc/flash_attention.cu``) and its plain PyTorch version.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
-Pallas TPU kernel).  On this card the kernel does its products with f32
-FMAs, so it is bound by the FMA rate and shared-memory traffic rather
-than by the ~50 MB of q/k/v/o it must move at the serving slice's shapes;
-its design (one CTA per (b*h, 64-row q tile), a kv loop bounded per tile
-by the causal diagonal and the window, ragged tails masked) is described
-in the source.
+Pallas TPU kernel).  At the serving slice's shapes it must move ~50 MB of
+q/k/v/o against ~8.6 GFLOP, so it is bound by the bytes.  bf16 inputs run
+on the tensor cores: one CTA of one warpgroup per (b*h, 64-row q tile), Q
+and a two-stage cp.async ring of K/V tiles in bf16 in shared memory,
+``wgmma`` for Q K^T and P V with S and P kept in registers (P rounded to
+bf16 before P V), the online softmax on the fragments.  f32 inputs keep
+an FMA body in full f32.  Both bound the kv loop per q tile
+by the causal diagonal and the window and mask ragged tails; the source
+describes the design.
 
 q: [B, H, Sq, d]; k, v: [B, Hkv, Sk, d] -> [B, H, Sq, d], q positions
 right-aligned by Sk - Sq.  A CPU tensor goes to ``flash_attention_plain``;

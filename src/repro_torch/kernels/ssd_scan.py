@@ -3,12 +3,16 @@
 
 Replaces ``src/repro/kernels/ssd_scan.py::ssd_scan`` (the Pallas TPU
 kernel).  At the serving slice's prefill shape it must move ~150 MB
-against ~27 GFLOP, so on the tensor cores it would be bound by the bytes;
-this first kernel does its products with f32 FMAs, so it is bound by the
-FMA rate and shared-memory traffic.  Its design (one CTA per (b, h)
-looping over its chunks with the state on chip, each chunk walked in
-64-row sub-tiles, the decay computed only on and below the diagonal,
-steps past L read as dt = 0) is described in the source.
+against ~27 GFLOP, so it is bound by the bytes.  bf16 inputs run on the
+tensor cores (``mma.sync.m16n8k16``, f32 accumulators): a first kernel
+computes C B^T once per (sequence, chunk) into an f32 scratch that this
+wrapper allocates, shared by all heads; then one CTA per (b, h) loops
+over its chunks with the f32 state in registers, and each of its other
+products keeps the exact bf16 tensor on one side and splits the f32 side
+(dt and the decays folded in) into bf16 high and low parts, ~16 bits of
+mantissa.  f32 inputs keep an FMA body in full f32.  Both compute the
+decay only on and below the diagonal and read steps past L as dt = 0;
+the source describes the design.
 
 x: [B, L, H, P]; dt: [B, L, H] f32 (softplus'ed); A: [H] f32 (negative);
 Bm, Cm: [B, L, N] in x's dtype -> (y [B, L, H, P] in ``out_dtype``,
@@ -127,9 +131,14 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
     check_layout("ssd_scan", *tensors)
     y = torch.empty((Bsz, L, H, P), dtype=out_dtype, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    # bf16: C B^T of every (sequence, chunk), shared by the heads
+    cb = (torch.empty((Bsz, -(-L // chunk), chunk, chunk),
+                      dtype=torch.float32, device=x.device)
+          if x.dtype == torch.bfloat16 else None)
     rc = _build.library().repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, L, H, P, N,
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if cb is None else cb.data_ptr(), Bsz, L, H, P, N,
         int(chunk), DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd_scan")

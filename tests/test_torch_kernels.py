@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
@@ -29,7 +30,8 @@ from repro_torch.kernels import (_build, decode_attention,
                                  decode_attention_plain, flash_attention,
                                  flash_attention_plain)
 from repro_torch.kernels.decode_attention import GROUPS
-from repro_torch.kernels.flash_attention import HEAD_DIMS, check_layout
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, NEG_INF,
+                                                 check_layout)
 from repro_torch.kernels.ssd_scan import SHAPES as SSD_SHAPES
 
 torch.set_num_threads(2)
@@ -108,6 +110,91 @@ def test_flash_plain_matches_ref_ragged(Sq, Sk, kw, dtype):
     got = flash_attention_plain(q, k, v, **kw)
     assert torch.isfinite(got.float()).all()
     _close(got, want, TOL[dtype])
+
+
+# ------------------------------------------------------------------ #
+# flash_attention's bf16 tensor-core arithmetic, emulated on the CPU
+# ------------------------------------------------------------------ #
+def _flash_tensor_core_emulation(q, k, v, *, causal=True, window=None,
+                                 softcap=None, scale=None):
+    """The rounding of ``csrc/flash_attention.cu``'s bf16 path in plain
+    PyTorch: logits in f32 from the bf16 operands, an online softmax over
+    kv tiles of 64 keys (32 at d = 256) walked from each 64-row q tile's
+    first visible tile to its causal end, P rounded to bf16 before P V
+    (the row sum takes P unrounded), -2**30 for masked keys, -inf past Sk
+    and the l == 0 guard."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    bq, bk = 64, 64 if d <= 128 else 32
+    scale = scale if scale is not None else d ** -0.5
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    off = Sk - Sq
+    out = torch.zeros(B, H, Sq, d)
+    for q0 in range(0, Sq, bq):
+        q1 = min(q0 + bq, Sq)
+        qpos = torch.arange(q0, q1)[:, None] + off
+        begin, end = 0, Sk
+        if not (causal and q0 + off < 0):
+            if causal:
+                end = min(Sk, q1 - 1 + off + 1)
+            if window is not None:
+                begin = max(0, q0 + off - window + 1)
+        begin = begin // bk * bk
+        m = torch.full((B, H, q1 - q0, 1), NEG_INF)
+        l = torch.zeros(B, H, q1 - q0, 1)
+        acc = torch.zeros(B, H, q1 - q0, d)
+        for kt in range(begin, end, bk):
+            kpos = torch.arange(kt, kt + bk)[None, :]
+            ks = kf[:, :, kt:kt + bk]
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, q0:q1].float(), ks)
+            s = F.pad(s * scale, (0, bk - ks.shape[2]))
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            keep = torch.ones_like(kpos + qpos, dtype=torch.bool)
+            if causal:
+                keep &= qpos >= kpos
+            if window is not None:
+                keep &= qpos < kpos + window
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+            s = torch.where(kpos >= Sk, torch.full_like(s, -torch.inf), s)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            vs = F.pad(vf[:, :, kt:kt + bk], (0, 0, 0, bk - ks.shape[2]))
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ vs
+            m = m_new
+        out[:, :, q0:q1] = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("Sq,Sk,d,kw", [
+    (200, 200, 128, {}),                                 # ragged
+    (70, 200, 128, {}),                                  # Sq < Sk
+    (130, 70, 128, {}),                                  # Sq > Sk: masked rows
+    (200, 200, 128, {"window": 64, "softcap": 50.0}),
+    (90, 90, 128, {"causal": False, "window": 32}),
+    (150, 150, 256, {"window": 64, "softcap": 50.0}),
+])
+def test_flash_tensor_core_rounding_holds_the_tolerance(Sq, Sk, d, kw):
+    """P rounded to bf16 before P V keeps the bf16 kernel within TOL of
+    the JAX reference and of the plain version, at the inputs and
+    tolerance chip_smoke.py holds the kernel to."""
+    (qj, q), (kj, k), (vj, v) = _qkv(8, 1, 4, 2, Sq, Sk, d, "bfloat16")
+    got = _flash_tensor_core_emulation(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    tol = TOL["bfloat16"]
+    _close(got, ref.attention_ref(qj, kj, vj, **kw), tol)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, **kw),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_tensor_core_rounding_matches_pallas():
+    (qj, q), (kj, k), (vj, v) = _qkv(9, 2, 4, 2, 256, 256, 128, "bfloat16")
+    want = pallas_flash(qj, kj, vj, causal=True, interpret=True)
+    _close(_flash_tensor_core_emulation(q, k, v), want, TOL["bfloat16"])
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version():
@@ -232,6 +319,17 @@ def _c_entries():
     return out
 
 
+def _body(src: str, head: str) -> str:
+    """The brace-balanced body that follows the first ``head`` in src."""
+    i = src.index("{", src.index(head))
+    depth = 0
+    for j in range(i, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return src[i:j + 1]
+    raise AssertionError(f"unbalanced body after {head!r}")
+
+
 def test_ctypes_signatures_match_the_cuda_sources():
     entries = _c_entries()
     assert set(entries) == set(_build.SIGNATURES)
@@ -246,6 +344,17 @@ def test_cuda_dispatch_covers_the_dense_configs():
     decode = (CSRC / "decode_attention.cu").read_text()
     dims = {int(x) for x in re.findall(r"launch_flash<T, (\d+)>", flash)}
     assert dims == set(HEAD_DIMS)
+    # bf16 goes to the tensor-core kernel, tiled for every head dim; f32
+    # keeps the FMA body
+    assert {int(x) for x in re.findall(r"struct FlashMma<(\d+)>",
+                                       flash)} == set(HEAD_DIMS)
+    launch = _body(flash, "cudaError_t launch_flash(")
+    bf16, f32 = launch.split("} else {")
+    assert "is_same_v<T, __nv_bfloat16>" in bf16
+    assert "flash_fwd_mma_kernel<D>" in bf16 and "flash_fwd_kernel<T, D>" in f32
+    mma = _body(flash, "flash_fwd_mma_kernel(")
+    assert "wgmma_qk<BK>(" in mma and "wgmma_pv<D>(" in mma
+    assert "wgmma" not in _body(flash, "\nflash_fwd_kernel(")
     assert {int(x) for x in re.findall(r"dispatch_groups<T, (\d+)>",
                                        decode)} == set(HEAD_DIMS)
     assert {int(x) for x in re.findall(r"launch_decode<T, D, (\d+)>",
@@ -264,6 +373,16 @@ def test_cuda_dispatch_covers_the_ssm_configs():
     shapes = {(int(p), int(n)) for p, n in
               re.findall(r"launch_ssd<T, O, (\d+), (\d+)>", src)}
     assert shapes == set(SSD_SHAPES)
+    # bf16: C B^T once per (b, chunk), then the tensor-core scan; f32
+    # keeps the FMA body
+    launch = _body(src, "cudaError_t launch_ssd(")
+    bf16, f32 = launch.split("} else {")
+    assert "is_same_v<T, bf16>" in bf16
+    assert "ssd_cb_kernel<N>" in bf16 and "ssd_scan_mma_kernel<O, P, N>" in bf16
+    assert "ssd_scan_kernel<T, O, P, N>" in f32
+    for kernel in ("ssd_cb_kernel(", "ssd_scan_mma_kernel("):
+        assert "mma_bf16(" in _body(src, kernel)
+    assert "mma_bf16(" not in _body(src, "\nssd_scan_kernel(")
     ssm = [c for c in ARCHS.values() if c.family == "ssm"]
     assert [c.name for c in ssm] == ["mamba2-2.7b"]
     for cfg in ssm:
@@ -274,7 +393,7 @@ def test_build_key_covers_every_source():
     cus, headers = _build._sources()
     assert {p.name for p in cus} == {"flash_attention.cu",
                                      "decode_attention.cu", "ssd_scan.cu"}
-    assert {p.name for p in headers} == {"common.cuh"}
+    assert {p.name for p in headers} == {"common.cuh", "mma.cuh"}
     assert _build._key() == _build._key()
     assert "sm_90a" in " ".join(_build.FLAGS)
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.kernels import ref
@@ -56,6 +57,7 @@ SEQ_TOL = dict(atol=2e-3, rtol=2e-3)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 MIXER_BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+SSD_TOL = dict(atol=1e-3, rtol=1e-3)   # chip_smoke.py's, for f32 outputs
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -156,6 +158,99 @@ def test_ssd_masks_before_the_exp():
     _, (x, dt, A, Bm, Cm) = _scan_inputs(5, 1, 128, 2, 16, 16)
     y, state = ssd_scan_plain(x, dt * 50.0, A * 10.0, Bm, Cm)
     assert torch.isfinite(y).all() and torch.isfinite(state).all()
+
+
+# ------------------------------------------------------------------ #
+# ssd_scan's bf16 tensor-core arithmetic, emulated on the CPU
+# ------------------------------------------------------------------ #
+def _split_bf16(t):
+    """t as a bf16 high part and the bf16 rounding of what it leaves."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _ssd_tensor_core_emulation(x, dt, A, Bm, Cm, *, chunk=128,
+                               out_dtype=torch.float32):
+    """The rounding of ``csrc/ssd_scan.cu``'s bf16 path in plain PyTorch:
+    G = C B^T once per (sequence, chunk) from the bf16 operands and shared
+    by every head; each other product keeps its exact bf16 side (x, C or
+    B) and splits its f32 side (G exp(cs_i - cs_j) dt_j, the carried
+    state, x dt_j exp(cs_end - cs_j)) into bf16 high and low parts; sums
+    in f32; steps past L read as dt = 0."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, chunk, H, P)
+    dtf = F.pad(dt.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, H)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, chunk, N)
+    G = torch.einsum("bzin,bzjn->bzij", Cc, Bc)          # once per (b, chunk)
+    cs = torch.cumsum(dtf * A.float(), dim=2)            # [B, nc, cl, H]
+    lower = torch.ones(chunk, chunk, dtype=torch.bool).tril()[None, :, :, None]
+    s = torch.zeros(Bsz, H, P, N)
+    ys = []
+    for z in range(nc):
+        csz = cs[:, z]
+        seg = (csz[:, :, None, :] - csz[:, None, :, :]).masked_fill(
+            ~lower, float("-inf"))
+        m_hi, m_lo = _split_bf16(G[:, z, :, :, None] * torch.exp(seg)
+                                 * dtf[:, z, None, :, :])  # [B, i, j, H]
+        y = (torch.einsum("bijh,bjhp->bihp", m_hi, xf[:, z])
+             + torch.einsum("bijh,bjhp->bihp", m_lo, xf[:, z]))
+        s_hi, s_lo = _split_bf16(s)
+        y_inter = (torch.einsum("bin,bhpn->bihp", Cc[:, z], s_hi)
+                   + torch.einsum("bin,bhpn->bihp", Cc[:, z], s_lo))
+        ys.append(y + y_inter * torch.exp(csz)[..., None])
+        cs_end = csz[:, -1]                               # [B, H]
+        w = dtf[:, z] * torch.exp(cs_end[:, None] - csz)  # [B, cl, H]
+        x_hi, x_lo = _split_bf16(xf[:, z] * w[..., None])
+        s = (s * torch.exp(cs_end)[..., None, None]
+             + torch.einsum("bjhp,bjn->bhpn", x_hi, Bc[:, z])
+             + torch.einsum("bjhp,bjn->bhpn", x_lo, Bc[:, z]))
+    y = torch.stack(ys, 1).reshape(Bsz, nc * chunk, H, P)[:, :L]
+    return y.to(out_dtype), s
+
+
+@pytest.mark.parametrize("L,chunk", [(256, 128), (300, 128), (100, 128),
+                                     (448, 64), (200, 256)])
+def test_ssd_tensor_core_rounding_holds_the_tolerance(L, chunk):
+    """C B^T shared across heads and the bf16 hi/lo splits keep the bf16
+    kernel's f32 y and state within SSD_TOL of the plain version and of
+    the JAX sequential oracle (fed the same bf16 values in f32, so that it
+    returns f32), at the (P, N) the kernel is built for, with the
+    distributions chip_smoke.py uses, ragged L included."""
+    _, tx = _scan_inputs(10, 2, L, 3, 64, 128, "bfloat16")
+    y, s = _ssd_tensor_core_emulation(*tx, chunk=chunk)
+    y0, s0 = ssd_scan_plain(*tx, chunk=chunk, out_dtype=torch.float32)
+    torch.testing.assert_close(y, y0, **SSD_TOL)
+    torch.testing.assert_close(s, s0, **SSD_TOL)
+    y_ref, s_ref = ref.ssd_ref(*[jnp.asarray(t.float().numpy()) for t in tx])
+    _close(y, y_ref, SSD_TOL)
+    _close(s, s_ref, SSD_TOL)
+
+
+def test_ssd_tensor_core_rounding_matches_pallas():
+    jx, tx = _scan_inputs(11, 1, 256, 2, 64, 128, "bfloat16")
+    want = pallas_ssd(*[j.astype(jnp.float32) for j in jx], chunk=128,
+                      interpret=True)
+    y, _ = _ssd_tensor_core_emulation(*tx, chunk=128)
+    _close(y, want, SSD_TOL)
+
+
+def test_ssd_tensor_core_split_beats_bf16_alone():
+    """Why the f32 side is split: rounded once to bf16 (8 bits) it misses
+    SSD_TOL; high plus low parts (~16 bits) hold it."""
+    rng = np.random.default_rng(12)
+    t = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+    b = b.to(torch.bfloat16).float()                      # the exact side
+    hi, lo = _split_bf16(t)
+    b = b.double()                      # products summed exactly: only
+    exact = t.double() @ b              # the operands' rounding counts
+    bound = SSD_TOL["atol"] + SSD_TOL["rtol"] * exact.abs()
+    assert ((hi.double() @ b - exact).abs() > bound).any()
+    assert ((hi.double() @ b + lo.double() @ b - exact).abs() < bound / 10).all()
 
 
 def test_ssd_wrapper_on_cpu_is_the_plain_version():
